@@ -7,10 +7,11 @@
 #   docker run --rm npore-tpu python -m pytest tests/ -q        # hermetic CPU
 #   docker run --rm npore-tpu npore-realign --help
 #
-# On TPU hosts, base on a libtpu-enabled image instead and install
-# jax[tpu]; everything in this repo runs unchanged (device selection is
-# runtime-automatic; tests force the CPU backend themselves).
-FROM python:3.11-slim-bookworm AS base
+# This image is the CPU test environment. To run on an NVIDIA GPU, use an
+# image that has the CUDA toolkit (nvcc, for the kernel that builds at first
+# use from npore_tpu/ops/cuda/dp_tb.cu) and install jax[cuda12]==0.9.0;
+# the engine then picks the GPU kernel by itself.
+FROM python:3.12-slim-bookworm AS base
 
 ENV LANG=C.UTF-8 LC_ALL=C.UTF-8 PIP_NO_CACHE_DIR=1 \
     JAX_PLATFORMS=cpu
@@ -25,14 +26,14 @@ WORKDIR /opt/npore-tpu
 
 # pinned runtime + test deps (the image is the reproducibility story;
 # pyproject keeps loose ranges for library consumers)
-RUN pip install "jax==0.4.38" "numpy<3" pytest matplotlib
+RUN pip install "jax==0.9.0" "numpy<3" pytest pytest-xdist matplotlib
 
 COPY pyproject.toml README.md ./
 COPY npore_tpu ./npore_tpu
 COPY guppy5_stats ./guppy5_stats
 COPY scripts ./scripts
 COPY tests ./tests
-COPY bench.py __graft_entry__.py ./
+COPY bench.py chip_smoke.py __graft_entry__.py ./
 
 RUN pip install -e . && python -c "import npore_tpu, jax; \
     from npore_tpu.native import get_lib; \
@@ -41,7 +42,7 @@ RUN pip install -e . && python -c "import npore_tpu, jax; \
 CMD ["python", "-m", "pytest", "tests/", "-q"]
 
 # ---------------------------------------------------------------------------
-# Opt-in stage with the REAL external pipeline tools (VERDICT r4 #8): the
+# Opt-in stage with the REAL external pipeline tools: the
 # build container this repo is developed in has no network access and no
 # samtools/minimap2/bcftools binaries, so the L5 shell pipelines
 # (scripts/align.sh, realign_pipeline.sh) are exercised in-suite against

@@ -1,8 +1,10 @@
-"""Benchmark harness: reads realigned/sec on one chip, vs CPU baseline.
+"""Benchmark harness: reads realigned/sec on one GPU, vs CPU baseline.
 
-Measures steady-state throughput of the device engine on the checked-in
-test fixtures (tests/data/reads.sam: 10 ONT-like reads, 418-710 bp), with
-the read set replicated to fill device batches. Prints ONE JSON line.
+Measures steady-state throughput of the platform's device engine (the CUDA
+kernel) on the checked-in test fixtures (tests/data/reads.sam: 10 ONT-like
+reads, 418-710 bp), with the read set replicated to fill device batches.
+Prints ONE JSON line naming the device it ran on; exits non-zero when JAX
+finds no GPU.
 
 ``vs_baseline`` compares against the reference's multicore Cython engine.
 The reference cannot execute here (no pysam/Cython), so the baseline is
@@ -83,7 +85,8 @@ def _mixed_bam_path() -> str:
     so steady state exercises the geometric bucket ladder and mixed-length
     grouping (reference cost defaults: src/aln.pyx:379-382)."""
     import importlib.util
-    cache = os.path.join(os.path.expanduser("~/.cache/npore_bench"))
+    from npore_tpu.paths import BUILD_DIR
+    cache = os.path.join(BUILD_DIR, "bench")
     os.makedirs(cache, exist_ok=True)
     path = os.path.join(cache, "mixed_v1.bam")
     if os.path.exists(path):
@@ -113,7 +116,7 @@ def _mixed_bam_path() -> str:
 
 
 def _bucket_of(rec, cfg) -> int:
-    from npore_tpu.engine.pallas_engine import _r_pad_for
+    from npore_tpu.engine.device_engine import _r_pad_for
     b_rows = len(rec.query_alignment_sequence) + rec.reference_length + 1
     return _r_pad_for(b_rows + 1, cfg.max_b_rows)
 
@@ -124,10 +127,9 @@ def run_mixed(rl, sub_scores, np_scores, cfg) -> dict:
     from npore_tpu.io.bam import open_alignment_file
     from npore_tpu.io.cigar import expand_cigar
     bam_path = _mixed_bam_path()
-    # 48 replicas: at 16 the 1536/3072 buckets ran only ~2 groups — a
-    # latency measurement, not steady-state throughput (the pipeline
-    # overlaps put/dispatch/get across groups only once several are in
-    # flight). ~4-6 groups per bucket reflects the production regime.
+    # 48 replicas, so each bucket runs several groups (the pipeline
+    # overlaps packing, device work and decoding across groups only once
+    # several are in flight)
     rep = int(os.environ.get("NPORE_BENCH_MIXED_REPLICAS", "48"))
     bam = open_alignment_file(bam_path)
     by_bucket = {}
@@ -183,7 +185,22 @@ def run_mixed(rl, sub_scores, np_scores, cfg) -> dict:
     return detail
 
 
-def main() -> None:
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    import subprocess
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0].strip()
+
+
+def main() -> int:
+    import jax
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        print(f"bench: JAX found no GPU (platform {dev.platform!r})",
+              file=sys.stderr)
+        return 2
     from npore_tpu.engine.realigner import Realigner
     from npore_tpu.io.bam import BamReader, open_alignment_file
     from npore_tpu.model.scores import (calc_score_matrices,
@@ -213,16 +230,11 @@ def main() -> None:
                     yield r
 
     n_work = rep * len(reads)
-    rl = Realigner(sub_scores, np_scores, engine="pallas")
+    rl = Realigner(sub_scores, np_scores)
 
     # warmup: compile + one full pass
     list(rl.realign_records(iter(reads * 4), batch_size=256))
 
-    # shared-pool throughput swings +-30% between minutes (measured
-    # 2614 vs 3596 back-to-back on identical code); more best-of passes
-    # make the captured artifact robust to a bad moment, and the
-    # per-pass list lets cross-round deltas be separated from pool
-    # variance (VERDICT r4 #7)
     passes = []
     for _ in range(int(os.environ.get("NPORE_BENCH_PASSES", "4"))):
         t0 = time.perf_counter()
@@ -242,15 +254,17 @@ def main() -> None:
         "vs_baseline": round(best / base, 2),
         "passes": passes,
         "median": round(float(np.median(passes)), 2),
+        "engine": rl.engine,
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices()), "card": card()},
     }
-    # mixed-bucket detail is ON by default so the driver artifact records
-    # the bucket-ladder / mixed-length grouping behavior (VERDICT r3 #3);
-    # NPORE_BENCH_MIXED=0 skips it for quick checks. Replica count is
-    # capped (default 16) to keep the added runtime ~1 min warm.
+    # mixed-bucket detail is on by default (the bucket ladder and
+    # mixed-length grouping); NPORE_BENCH_MIXED=0 skips it for quick checks
     if os.environ.get("NPORE_BENCH_MIXED", "1") != "0":
         result["mixed"] = run_mixed(rl, sub_scores, np_scores, cfg)
     print(json.dumps(result))
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -1,9 +1,10 @@
-"""nPoRe-TPU: a TPU-native n-polymer-aware read realignment framework.
+"""npore_tpu: n-polymer-aware nanopore read realignment on a GPU.
 
-A ground-up reimplementation of the capabilities of nPoRe (TimD1/nPoRe) for
-TPU hardware: the banded 5-state alignment DP runs as batched XLA/Pallas
-kernels over device meshes, while BAM/FASTA/VCF/BED/pileup I/O is handled by
-a native host runtime (no pysam / samtools / bedtools subprocesses).
+A ground-up reimplementation of the capabilities of nPoRe (TimD1/nPoRe) in
+JAX: the banded 5-state alignment DP and its traceback run as one CUDA
+kernel per window group on an NVIDIA GPU (a plain-JAX twin runs it on the
+CPU), while BAM/FASTA/VCF/BED/pileup I/O is handled by a native host
+runtime (no pysam / samtools / bedtools subprocesses).
 
 Layout:
   io/        SAM/BAM/FASTA/VCF/BED codecs + pileup engine (host)

@@ -125,8 +125,8 @@ def column_counts(column: str):
 
 def gini_moments_device(base_counts: np.ndarray, ins_counts: np.ndarray,
                         mesh=None) -> Tuple[np.ndarray, ...]:
-    """Vectorized per-column Gini moments on device (the TPU analog of
-    the reference's per-column mp.Pool, src/purity.py:190-191).
+    """Vectorized per-column Gini moments on device (the device analog
+    of the reference's per-column mp.Pool, src/purity.py:190-191).
 
     Integer moments keep the device math exact: returns
     (n, sumsq_base, not_ins, sumsq_ins) int32 vectors; the final f64

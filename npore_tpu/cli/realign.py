@@ -13,7 +13,7 @@ from time import perf_counter
 import numpy as np
 
 from ..config import AlignConfig, RealignConfig
-from ..engine.realigner import Realigner
+from ..engine.realigner import ENGINES, Realigner
 from ..engine.regions import get_bam_regions
 from ..io.bam import open_alignment_file
 from ..io.fasta import FastaFile
@@ -43,9 +43,10 @@ def argparser() -> argparse.ArgumentParser:
     p.add_argument("--plot", action="store_true")
     p.add_argument("--recalc_cms", action="store_true")
     p.add_argument("--recalc_exit", action="store_true")
-    p.add_argument("--engine", default="auto",
-                   choices=["auto", "xla", "pallas", "golden"],
-                   help="DP engine (new; no reference equivalent).")
+    p.add_argument("--engine", default="auto", choices=list(ENGINES),
+                   help="DP engine (new; no reference equivalent): auto "
+                        "picks cuda on a GPU and xla on the CPU; golden is "
+                        "the numpy spec.")
     p.add_argument("--batch_reads", type=int, default=512)
     p.add_argument("--profile_dir", type=str, default=None,
                    help="Write a jax.profiler trace of the realignment "
@@ -197,12 +198,7 @@ def main(argv=None) -> int:
         print(f"WARNING: {s}")
     if realigner.skipped:
         print(f"    {len(realigner.skipped)} reads skipped (malformed)")
-    rescued = getattr(getattr(realigner, "_pallas", None),
-                      "rescue_count", 0)
-    if rescued:
-        print(f"    {rescued} alignments rescued by the extended-coverage "
-              f"device tier")
-    if realigner.bail_count:
+    if realigner.engine != "golden":
         print(f"    {realigner.bail_count} alignments used the golden "
               f"fallback")
     print(f"\r    {n} reads realigned; runtime: {perf_counter()-start:.2f}s")

@@ -2,8 +2,8 @@
 
 Normalizes a (phased, diploid) truth VCF by splitting it into haploid
 variant sets, synthesizing each haplotype's whole-contig sequence,
-re-aligning those sequences with the same batched TPU kernel the read
-realigner uses (the reference fans out over mp.Pool(10);
+re-aligning those sequences with the same batched device engine the
+read realigner uses (the reference fans out over mp.Pool(10);
 src/standardize_vcf.py:30-31), and converting the realigned CIGARs back
 into a merged diploid VCF.
 
@@ -21,7 +21,7 @@ import numpy as np
 
 from ..config import AlignConfig
 from ..constants import bases_to_int
-from ..engine.realigner import AlignItem, Realigner
+from ..engine.realigner import ENGINES, AlignItem, Realigner
 from ..io.cigar import normalize_cigar
 from ..io.fasta import FastaFile
 from ..io.vcf import VcfReader, apply_vcf, gen_vcf, merge_vcfs, split_vcf
@@ -46,7 +46,7 @@ def argparser() -> argparse.ArgumentParser:
     p.add_argument("--chunk_width", type=int, default=100000)
     p.add_argument("--min_qual", type=int, default=0)
     p.add_argument("--engine", default="auto",
-                   choices=["auto", "xla", "pallas", "golden"])
+                   choices=list(ENGINES))
     return p
 
 
@@ -87,8 +87,8 @@ def realign_haps(hap_data, realigner: Realigner, timing: bool = False):
     for contig, hap, seq, ref, cigar in hap_data:
         items.append(AlignItem(bases_to_int(ref), bases_to_int(seq), cigar))
     t0 = perf_counter()
-    eng = getattr(realigner, "_pallas", None)
-    if hasattr(eng, "align_batch_async"):
+    eng = realigner._device
+    if eng is not None:
         collect = eng.align_batch_async(items)   # window build + submit
         t1 = perf_counter()
         new_cigars = collect()                   # device wait + decode

@@ -4,16 +4,21 @@ Replaces the reference's per-read multiprocessing worker model
 (reference: src/realign.py:110-114, src/bam.pyx:51-89) with a batched
 device pipeline:
 
-    reads -> windows (host) -> R-bucketed batches -> device DP (XLA/Pallas)
-          -> host traceback -> per-read CIGAR reassembly -> normalize -> SAM
+    reads -> windows (host) -> r_pad-bucketed groups -> device step
+          (prepass + DP + traceback) -> per-read CIGAR reassembly
+          -> normalize -> SAM
 
 Every chunk of every read is an independent work item (chunks re-anchor on
-the original path), so windows from different reads mix freely in a batch.
+the original path), so windows from different reads mix freely in a group.
+
+Engines: ``cuda`` (the GPU kernel), ``xla`` (its plain-JAX twin, the CPU
+engine) and ``golden`` (the numpy spec, the oracle). ``auto`` picks by the
+JAX platform: ``cuda`` on a GPU, ``xla`` on the CPU.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 
@@ -21,39 +26,8 @@ from ..config import AlignConfig
 from ..constants import bases_to_int
 from ..io.cigar import expand_cigar, finalize_cigar
 from ..io.sam import SamRecord
-from .windows import Window, build_windows, pack_batch
 
-# R-size buckets; windows run in the smallest bucket that fits
-BUCKETS = (256, 512, 1024, 2048, 4096, 8192, 16384, 20032)
-CELL_BUDGET = 1 << 17   # B*R cells per batch keeps outputs ~40MB
-
-_cache_enabled = False
-
-
-def _enable_compilation_cache() -> None:
-    """Persist XLA compilations across processes; the scan graphs are large
-    and their compile time dominates small runs otherwise."""
-    global _cache_enabled
-    if _cache_enabled:
-        return
-    import os
-    import jax
-    cache_dir = os.environ.get("NPORE_JAX_CACHE",
-                               os.path.expanduser("~/.cache/npore_jax"))
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:
-        pass
-    _cache_enabled = True
-
-
-def _bucket_for(b_rows: int) -> int:
-    for b in BUCKETS:
-        if b_rows <= b:
-            return b
-    raise ValueError(f"window of {b_rows} rows exceeds largest bucket")
+ENGINES = ("auto", "cuda", "xla", "golden")
 
 
 @dataclasses.dataclass
@@ -66,103 +40,37 @@ class AlignItem:
 
 class Realigner:
     def __init__(self, sub_scores: np.ndarray, np_scores: np.ndarray,
-                 cfg: AlignConfig = AlignConfig(), engine: str = "auto"):
+                 cfg: AlignConfig = AlignConfig(), engine: str = "auto",
+                 devices: Optional[list] = None):
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
         self.cfg = cfg
-        if engine == "auto":
-            engine = "pallas"
-        self.engine = engine
         self.sub_scores = sub_scores
         self.np_scores = np_scores
         self.errors: List[str] = []
         self.skipped: List[str] = []
-        self._pallas = None
-        if engine == "pallas":
-            _enable_compilation_cache()
-            from .pallas_engine import PallasEngine
-            self._pallas = PallasEngine(sub_scores, np_scores, cfg)
-        elif engine == "xla":
-            import jax
-            import jax.numpy as jnp
-            _enable_compilation_cache()
-            from ..ops.band_dp import Tables, build_cont_tables
-            self._cont = build_cont_tables(np_scores, cfg.max_n, cfg.max_l)
-            self._tables = Tables(sub_flat=jnp.asarray(sub_scores.reshape(-1)),
-                                  cont=jnp.asarray(self._cont.reshape(-1)))
-            self._dp_cache: Dict[int, object] = {}
+        self._device = None
+        if engine != "golden":
+            from ..paths import enable_compilation_cache
+            from .device_engine import DeviceEngine, check_impl
+            engine = check_impl(None if engine == "auto" else engine)
+            enable_compilation_cache()
+            self._device = DeviceEngine(sub_scores, np_scores, cfg,
+                                        impl=engine, devices=devices)
+        self.engine = engine
 
     @property
     def bail_count(self) -> int:
-        return self._pallas.bail_count if self._pallas else 0
-
-    # ------------------------------------------------------------------
-    def _dp(self, r_max: int):
-        fn = self._dp_cache.get(r_max)
-        if fn is None:
-            from ..ops.band_dp import make_window_dp
-            fn = make_window_dp(r_max, self.cfg, self.cfg.max_n)
-            self._dp_cache[r_max] = fn
-        return fn
+        return self._device.bail_count if self._device else 0
 
     def align_batch(self, items: Sequence[AlignItem]) -> List[str]:
         """Realign a batch of alignments; returns extended CIGARs ('=XID')."""
-        if self.engine == "golden":
+        if self._device is None:
             from ..golden.align import align as golden_align
             return [golden_align(it.ref, it.seq, it.cigar, self.sub_scores,
                                  self.np_scores, self.cfg, self.errors)
                     for it in items]
-        if self.engine == "pallas":
-            return self._pallas.align_batch(items)
-        return self._align_batch_device(items)
-
-    def _align_batch_device(self, items: Sequence[AlignItem]) -> List[str]:
-        import jax.numpy as jnp
-        from ..ops.traceback import traceback_window
-
-        windows: List[Window] = []
-        for i, it in enumerate(items):
-            windows.extend(build_windows(it.ref, it.seq, it.cigar,
-                                         self.cfg, aln_idx=i))
-
-        by_bucket: Dict[int, List[Window]] = {}
-        for w in windows:
-            by_bucket.setdefault(_bucket_for(w.b_rows), []).append(w)
-
-        chunk_cigars: Dict[Tuple[int, int], str] = {}
-        dummy = Window(key=(-1, -1), b_rows=1, n_ins=0, n_del=0,
-                       seq=np.zeros(1, np.int8), ref=np.zeros(1, np.int8),
-                       inss_local=np.zeros(1, np.int32),
-                       ref_guard=0, seq_guard=0)
-        for r_max, wins in sorted(by_bucket.items()):
-            bsz = max(4, CELL_BUDGET // r_max)
-            dp = self._dp(r_max)
-            for lo in range(0, len(wins), bsz):
-                group = wins[lo:lo + bsz]
-                # pad the batch to a power of two with trivial windows so the
-                # number of compiled shapes stays small
-                nb = 4
-                while nb < len(group):
-                    nb *= 2
-                pad = [dummy] * (nb - len(group))
-                batch = pack_batch(group + pad, r_max, self._cont,
-                                   self.cfg.max_n)
-                batch = {k: jnp.asarray(v) for k, v in batch.items()}
-                typs, runs = dp(batch, self._tables)
-                typs = np.asarray(typs)
-                runs = np.asarray(runs)
-                for j, w in enumerate(group):
-                    chunk_cigars[w.key] = traceback_window(
-                        typs[j], runs[j], w.inss_local, w.seq, w.ref,
-                        w.n_ins, w.n_del, self.cfg.r, self.errors)
-
-        out = []
-        for i in range(len(items)):
-            parts = []
-            ci = 0
-            while (i, ci) in chunk_cigars:
-                parts.append(chunk_cigars[(i, ci)])
-                ci += 1
-            out.append("".join(parts))
-        return out
+        return self._device.align_batch(items)
 
     # ------------------------------------------------------------------
     def realign_records(self, reads: Iterable[SamRecord],
@@ -178,9 +86,8 @@ class Realigner:
         (src/realign.py:110-114).
 
         The pipeline is three host stages on dedicated threads, so the
-        main thread only yields ready records (the round-2 e2e finding:
-        per-read main-thread submit ~230us + finalize ~130us sat serially
-        on top of the ~360us device wait):
+        main thread only yields ready records and per-read submit and
+        finalize work overlap the device instead of adding to it:
 
             producer: stream/decode reads into batches
             stage A : prep + window building + async device dispatch
@@ -219,8 +126,8 @@ class Realigner:
         def stage_a(batch):
             t0 = perf_counter()
             items, meta = self._prep_batch(batch)
-            if self.engine == "pallas":
-                collect = self._pallas.align_batch_async(items)
+            if self._device is not None:
+                collect = self._device.align_batch_async(items)
             else:
                 collect = (lambda its: lambda: self.align_batch(its))(items)
             t_sub[0] += perf_counter() - t0
@@ -228,10 +135,8 @@ class Realigner:
 
         def stage_b(fut_a):
             # collect + finalize + SAM assembly all on ONE worker thread:
-            # moving finalize to the main thread was measured WORSE on HW
-            # (3566 -> 2674 reads/s; collect-wait 86 -> 289us/read — the
-            # main-thread finalize contends on the GIL with this thread's
-            # slot decode), as was a 2-3 worker stage-B pool
+            # a finalize on the main thread would contend on the GIL with
+            # this thread's slot decode
             meta, collect = fut_a.result()
             c_acc = [0.0]
 
@@ -249,12 +154,7 @@ class Realigner:
         t = threading.Thread(target=producer, daemon=True)
         t.start()
         ex_a = ThreadPoolExecutor(1)
-        # stage-B workers: 1 by default — widening to 3 was measured WORSE
-        # pre-fused-put on HW (2853 -> 1768 reads/s; GIL thrash on the
-        # 4-core host); NPORE_STAGEB re-tests now that the submit path is
-        # nearly free
-        nb = int(os.environ.get("NPORE_STAGEB", "1"))
-        ex_b = ThreadPoolExecutor(nb)
+        ex_b = ThreadPoolExecutor(1)
         inflight: deque = deque()
         try:
             while True:

@@ -184,7 +184,7 @@ def calc_confusion_matrices_bam(bam_path: str, ref_fa, regions: List[Region],
     (``processes=0`` -> cpu count; 1 -> serial), and under multi-host
     meshes each host sums its region shard and the partial counts are
     psum-reduced over the mesh (parallel/mesh.reduce_confusion_matrices),
-    the TPU-native form of the reference's np.sum over pool results
+    the device-mesh form of the reference's np.sum over pool results
     (src/bam.pyx:183-192)."""
     max_n, max_l = cfg.align.max_n, cfg.align.max_l
     ranges = list(get_ranges(regions, cfg.chunk_width))

@@ -8,7 +8,6 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
-import tempfile
 from typing import Optional
 
 import numpy as np
@@ -19,8 +18,8 @@ _tried = False
 
 
 def _build() -> Optional[str]:
-    cache = os.environ.get("NPORE_NATIVE_CACHE",
-                           os.path.expanduser("~/.cache/npore_native"))
+    from ..paths import BUILD_DIR
+    cache = os.path.join(BUILD_DIR, "native")
     try:
         os.makedirs(cache, exist_ok=True)
     except OSError:
@@ -34,10 +33,14 @@ def _build() -> Optional[str]:
             and all(os.path.getmtime(out) >= os.path.getmtime(s_)
                     for s_ in srcs)):
         return out
+    # build under a private name, then rename: concurrent processes (test
+    # workers) never load a half-written library
+    tmp = f"{out}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-o", out] + srcs + ["-lz"],
+            ["g++", "-O3", "-shared", "-fPIC", "-o", tmp] + srcs + ["-lz"],
             check=True, capture_output=True, timeout=180)
+        os.replace(tmp, out)
         return out
     except Exception:
         return None
@@ -94,11 +97,8 @@ def get_lib() -> Optional[ctypes.CDLL]:
                 i64p = ctypes.POINTER(ctypes.c_int64)
                 i32p = ctypes.POINTER(ctypes.c_int32)
                 lib.fill_group.argtypes = [
-                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
-                    ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                    ctypes.c_int32, ctypes.c_int32,
-                    u64p, i64p, u64p, i64p, u64p, i32p,
-                    ctypes.POINTER(ctypes.c_uint8), i32p]
+                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                    u64p, i64p, u64p, i64p, u64p, i32p, i32p]
                 lib.fill_group.restype = ctypes.c_int32
                 _lib = lib
             except Exception:
@@ -225,18 +225,15 @@ def finalize_cigar_batch(cigars, refs, seqs):
     return [blob[offs[i]:offs[i + 1]].decode("ascii") for i in range(m)]
 
 
-def fill_group_native(group, r_pad: int, r: int, blk: int, tblk: int,
-                      nblk: int, ntb: int, pk8: np.ndarray,
-                      idx32_flat: np.ndarray) -> Optional[int]:
-    """One-call C++ group fill (pk8 byte plane + idx32 index planes for
-    every window); returns group max_rows, or None without a compiler.
-    Bit-identical to the Python loop in _submit_group (pinned by
-    tests/test_groupfill.py)."""
+def fill_group_native(group, r_pad: int, buf: np.ndarray) -> Optional[int]:
+    """One-call C++ group fill of ``buf`` (B, r_pad // 4 + SCAL) int32, the
+    device step's packed input (engine/prepass.py); returns the group's
+    max b_rows, or None without a compiler. Bit-identical to
+    engine/device_engine.fill_group_py (pinned by tests/test_groupfill.py)."""
     lib = get_lib()
     if lib is None:
         return None
     n = len(group)
-    ni = idx32_flat.shape[1]
     ref_ptrs = np.fromiter((w.ref.ctypes.data for w in group),
                            np.uint64, n)
     seq_ptrs = np.fromiter((w.seq.ctypes.data for w in group),
@@ -252,12 +249,11 @@ def fill_group_native(group, r_pad: int, r: int, blk: int, tblk: int,
     i64p = ctypes.POINTER(ctypes.c_int64)
     i32p = ctypes.POINTER(ctypes.c_int32)
     return int(lib.fill_group(
-        n, r_pad, r, blk, tblk, nblk, ntb, ni,
+        n, r_pad, buf.shape[1],
         ref_ptrs.ctypes.data_as(u64p), ref_lens.ctypes.data_as(i64p),
         seq_ptrs.ctypes.data_as(u64p), seq_lens.ctypes.data_as(i64p),
         inss_ptrs.ctypes.data_as(u64p), scal5.ctypes.data_as(i32p),
-        pk8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        idx32_flat.ctypes.data_as(i32p)))
+        buf.ctypes.data_as(i32p)))
 
 
 def golden_align_native(full_ref: np.ndarray, full_seq: np.ndarray,

@@ -1,8 +1,8 @@
 // Banded 5-state n-polymer alignment DP -- native port of the golden
 // executable spec (golden/align.py; reference: src/aln.pyx:379-787).
 //
-// Used as the fast exact fallback when the Pallas engine bails (k
-// continuation outside the covered planes, traceback diagnostics, ...).
+// Used as the fast exact fallback when the device engine's traceback
+// fails, and as the reference the device engine is checked against.
 // All value arithmetic is float (SSE single precision), bit-matching the
 // reference's C float math.
 #include <cstdint>

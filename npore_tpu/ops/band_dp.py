@@ -22,8 +22,11 @@ This is the device engine for the reference align() kernel
   (side, n, l, k) tables; k is clamped to 127, exact because the score
   saturates there (call lengths clamp at max_l-1; src/aln.pyx:267-272).
 
-The scan emits the MAT plane's (TYP, RUN) per row; traceback runs on host
-(ops/traceback.py). All value math is float32, bit-matching the golden spec.
+The scan emits the MAT plane's (TYP, RUN) per row; ``tb_slots`` walks it
+back into compact per-row (op, count) slots on device. All value math is
+float32, bit-matching the golden spec. Together with engine/prepass.py this
+is the plain-JAX device step: the engine on the CPU, and the reference the
+CUDA kernel (ops/cuda/dp_tb.cu) is compared with and timed against.
 """
 from __future__ import annotations
 
@@ -423,3 +426,84 @@ def make_window_dp(R_max: int, cfg: AlignConfig, max_n: int = 6,
 
     batched = jax.vmap(one_window, in_axes=(0, None))
     return jax.jit(batched) if jit else batched
+
+
+# ---------------------------------------------------------------------------
+# traceback to compact slots
+# ---------------------------------------------------------------------------
+
+OP_EQ, OP_X, OP_I, OP_D = 0, 1, 2, 3
+SLOT_MAX = 63     # largest count one slot byte holds
+
+
+def tb_slots(typ, run, inss, seq, ref, n_ins, n_del, r: int):
+    """Backward traceback over the MAT planes (src/aln.pyx:670-742) as a
+    lockstep scan over rows.
+
+    typ/run: (B, R, LW) MAT planes; inss: (B, R) prefix-I counts; seq/ref:
+    (B, R) int bases; n_ins/n_del: (B,). Returns ``slots`` (B, R) uint8 and
+    ``bail`` (B,) int32.
+
+    Row t's slot byte is ``op | count << 2`` (op: OP_EQ/OP_X/OP_I/OP_D), 0
+    for no emission; read in ascending row order the slots spell the
+    forward CIGAR. A MAT step emits one '='/'X' at its row; an I/D run of
+    length L emits at its row, and runs longer than SLOT_MAX spill further
+    chunks onto the rows t-1, t-2, ... that the run skips. ``bail`` flags a
+    traceback error (run < 1, a path cell outside the band, or a step past
+    the origin); the engine then redoes the alignment with the golden
+    engine. ops/cuda/dp_tb.cu emits the identical bytes.
+    """
+    B, R, _ = typ.shape
+    cell = typ.astype(I32) | (run << 3)
+    xs = (jnp.moveaxis(cell, 1, 0)[::-1], jnp.swapaxes(inss, 0, 1)[::-1],
+          jnp.arange(R - 1, -1, -1, dtype=I32))
+    seqp = jnp.concatenate([jnp.zeros((B, 1), I32), seq.astype(I32)], 1)
+    refp = jnp.concatenate([jnp.zeros((B, 1), I32), ref.astype(I32)], 1)
+
+    def base_at(buf, pos):             # buf[pos], 0 outside [0, R)
+        v = jnp.take_along_axis(buf, jnp.clip(pos + 1, 0, R)[:, None],
+                                axis=1)[:, 0]
+        return jnp.where(pos < R, v, 0)
+
+    def step(carry, x):
+        arow, acol, pend, done, bail, erem, eop = carry
+        crow, ii, t = x
+        active = (done == 0) & (arow + acol == t)
+        lane = ii - arow + r
+        lok = (lane >= 0) & (lane < LW)
+        cv = jnp.take_along_axis(crow, jnp.clip(lane, 0, LW - 1)[:, None],
+                                 axis=1)[:, 0]
+        ty = cv & 7
+        rn = cv >> 3
+        fresh = active & (pend == 0)
+        bad = fresh & ((rn < 1) | ~lok)
+        is_i = fresh & ((ty == INS) | (ty == LEN)) & ~bad
+        is_d = fresh & ((ty == DEL) | (ty == SHR)) & ~bad
+        is_m = fresh & (ty == MAT) & ~bad
+        pend = jnp.where(is_m, rn, pend)
+        in_m = active & (pend > 0)
+        cmp_op = jnp.where(base_at(seqp, arow - 1) == base_at(refp, acol - 1),
+                           OP_EQ, OP_X)
+        is_run = is_i | is_d
+        cur_op = jnp.where(is_run, jnp.where(is_i, OP_I, OP_D), eop)
+        cur_rem = jnp.where(is_run, rn, erem)
+        emit_n = jnp.minimum(cur_rem, SLOT_MAX)
+        has = is_run | (erem > 0)
+        slot = jnp.where(in_m, cmp_op + (1 << 2), 0)
+        slot = jnp.where(has, cur_op + (emit_n << 2), slot)
+        erem = jnp.where(has, cur_rem - emit_n, erem)
+        arow = jnp.where(in_m, arow - 1, jnp.where(is_i, arow - rn, arow))
+        acol = jnp.where(in_m, acol - 1, jnp.where(is_d, acol - rn, acol))
+        pend = jnp.where(in_m, pend - 1, pend)
+        bail = jnp.where(bad | (active & ((arow < 0) | (acol < 0))), 1, bail)
+        done = jnp.where(((arow <= 0) & (acol <= 0)) | (bail > 0), 1, done)
+        return (arow, acol, pend, done, bail, erem, cur_op), slot
+
+    z = jnp.zeros((B,), I32)
+    n_ins = n_ins.astype(I32)
+    n_del = n_del.astype(I32)
+    done0 = ((n_ins <= 0) & (n_del <= 0)).astype(I32)
+    (_, _, _, done, bail, _, _), slots = jax.lax.scan(
+        step, (n_ins, n_del, z, done0, z, z, z), xs)
+    slots = jnp.swapaxes(slots[::-1], 0, 1).astype(jnp.uint8)
+    return slots, bail | (1 - done)

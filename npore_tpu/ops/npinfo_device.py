@@ -89,7 +89,7 @@ def np_info_device(seq, max_n: int = 6, max_l: int = 100):
         link = (pos >= n) & (t_prev >= n)
 
         # the scans step by n: put residue classes on their own (major)
-        # axis and scan along the large minor axis for TPU-friendly tiles
+        # axis and scan along the large minor axis
         pad = (-P) % n
         def classes(x, fill):
             xp = jnp.concatenate(

@@ -2,11 +2,12 @@
 
 The reference parallelizes within one host via ``mp.Pool`` (reference:
 src/realign.py:110-114); scaling past one host is out of its scope. The
-TPU-native mapping is the standard JAX multi-controller form:
+device mapping is the standard JAX multi-controller form:
 
 * every host runs the same CLI with ``--num_hosts/--host_id/--coordinator``;
 * ``init_distributed`` wires ``jax.distributed.initialize`` so all hosts
-  join one runtime (ICI/DCN collectives become available);
+  join one runtime (cross-process collectives become available: NCCL
+  between GPUs, gloo between CPU processes);
 * work is sharded deterministically by region (``shard_regions``) — BAM
   reads partition by coordinate ranges, so hosts never exchange reads;
 * confusion-count training reduces with an all-reduce over hosts
@@ -44,11 +45,10 @@ def init_distributed(coordinator: Optional[str] = None,
         raise ValueError("--coordinator (or JAX_COORDINATOR_ADDRESS) is "
                          "required for multi-host runs")
     import jax
-    # CPU backends need an explicit cross-process collectives transport
-    # (TPU rides ICI/DCN natively); gloo is the one shipped with jax.
-    # Set it unconditionally: the flag only affects the CPU backend, so
-    # it is a no-op on TPU runs, and a default-platform CPU host (no
-    # explicit jax_platforms) still gets working collectives.
+    # CPU backends need an explicit cross-process collectives transport;
+    # gloo is the one shipped with jax. The flag only affects the CPU
+    # backend (GPU processes use NCCL), so it is set unconditionally and
+    # a default-platform CPU host still gets working collectives.
     try:
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
     except Exception:
@@ -60,8 +60,8 @@ def init_distributed(coordinator: Optional[str] = None,
     # same program point: gloo builds its mesh lazily at the FIRST
     # collective with a ~30s key-exchange deadline, and the first
     # collective otherwise happens after minutes of per-host kernel
-    # compilation that drifts hosts apart (observed: 4-host pallas run,
-    # hosts 2/3 still compiling -> "Gloo context initialization failed:
+    # compilation that drifts hosts apart (a 4-host CPU run had hosts 2/3
+    # still compiling -> "Gloo context initialization failed:
     # DEADLINE_EXCEEDED" on host 0).
     from jax.experimental import multihost_utils
     multihost_utils.sync_global_devices("npore_init")

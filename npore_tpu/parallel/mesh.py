@@ -3,12 +3,14 @@
 The reference parallelises with a single-host ``multiprocessing.Pool`` over
 reads (reference: src/realign.py:110-114) and reduces confusion-matrix
 counts with ``np.sum`` on the host (reference: src/bam.pyx:183-192). The
-TPU-native mapping is a 1-D device mesh:
+device mapping is a 1-D device mesh:
 
 * window batches are sharded over the ``data`` mesh axis with ``shard_map``
-  (each chip runs the identical banded-DP scan on its shard);
+  (each device runs the identical banded-DP step on its shard);
 * confusion-count accumulation — the framework's "training" reduction — is a
-  ``psum`` over the same axis, riding ICI instead of host memory;
+  ``psum`` over the same axis, over NVLink (NCCL) on GPUs instead of host
+  memory. The cards of one host are joined all to all, so the mesh
+  follows the algorithm alone;
 * score tables (≈245 KB) are replicated, the batch is sharded.
 
 TP / PP / EP do not apply: the model has no weight matrices to shard, no

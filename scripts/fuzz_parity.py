@@ -1,8 +1,11 @@
-"""Differential fuzz: Pallas engine vs the golden executable spec.
+"""Differential fuzz: the device engine vs the golden engine.
 
 Generates mutated read/ref pairs with tunable repeat density (n-polymer
 contexts are where the interesting transitions live) and asserts identical
-extended CIGARs. Run any time kernels change:
+extended CIGARs. The device engine is the platform's (the CUDA kernel on a
+GPU, the plain-JAX twin on the CPU); the reference is the C++ port of the
+golden spec (golden/align.py where no compiler is available). Run any time
+kernels change:
 
     python scripts/fuzz_parity.py [n_cases] [seed]
 """
@@ -16,9 +19,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from npore_tpu.config import AlignConfig
 from npore_tpu.constants import bases_to_int
-from npore_tpu.engine.pallas_engine import PallasEngine
 from npore_tpu.engine.realigner import AlignItem
-from npore_tpu.golden.align import align as golden_align
 from npore_tpu.model.scores import calc_score_matrices, load_confusion_matrices
 
 STATS = os.path.join(os.path.dirname(os.path.dirname(
@@ -62,34 +63,46 @@ def make_case(rng):
     return ref, "".join(seq), "".join(cig)
 
 
-def main() -> int:
-    n_cases = int(sys.argv[1]) if len(sys.argv) > 1 else 100
-    seed = int(sys.argv[2]) if len(sys.argv) > 2 else 0
+def golden(it, sub_scores, np_scores, cfg):
+    from npore_tpu.native import golden_align_native
+    got = golden_align_native(it.ref, it.seq, it.cigar, sub_scores,
+                              np_scores, cfg)
+    if got is None:
+        from npore_tpu.golden.align import align
+        got = align(it.ref, it.seq, it.cigar, sub_scores, np_scores, cfg)
+    return got
+
+
+def run(eng, n_cases: int, seed: int, log=print) -> int:
+    """Align ``n_cases`` seeded cases with ``eng`` (anything with
+    align_batch); returns the number of mismatches against golden."""
     rng = np.random.default_rng(seed)
-
-    subs, nps, inss, dels = load_confusion_matrices(STATS)
-    sub_scores, np_scores, _, _ = calc_score_matrices(subs, nps, inss, dels)
-    cfg = AlignConfig()
-    eng = PallasEngine(sub_scores, np_scores, cfg)
-
-    cases = [make_case(rng) for _ in range(n_cases)]
     items = [AlignItem(bases_to_int(r), bases_to_int(s), c)
-             for r, s, c in cases]
+             for r, s, c in (make_case(rng) for _ in range(n_cases))]
     t0 = time.perf_counter()
     got = eng.align_batch(items)
-    print(f"device: {n_cases} cases in {time.perf_counter()-t0:.1f}s, "
-          f"bails={eng.bail_count}")
+    log(f"device: {n_cases} cases in {time.perf_counter() - t0:.1f}s, "
+        f"golden fallbacks={eng.bail_count}")
     bad = 0
     for i, (it, g) in enumerate(zip(items, got)):
-        want = golden_align(it.ref, it.seq, it.cigar, sub_scores, np_scores,
-                            cfg)
+        want = golden(it, eng.sub_scores, eng.np_scores, eng.cfg)
         if g != want:
             bad += 1
-            print(f"MISMATCH case {i} (seed={seed}): ref len {len(it.ref)}")
-            print(f"  got : {g[:80]}...")
-            print(f"  want: {want[:80]}...")
-    print(f"parity: {n_cases - bad}/{n_cases}")
-    return 1 if bad else 0
+            log(f"MISMATCH case {i} (seed={seed}): ref len {len(it.ref)}")
+            log(f"  got : {g[:80]}...")
+            log(f"  want: {want[:80]}...")
+    log(f"parity: {n_cases - bad}/{n_cases}")
+    return bad
+
+
+def main() -> int:
+    from npore_tpu.engine.device_engine import DeviceEngine
+    n_cases = int(sys.argv[1]) if len(sys.argv) > 1 else 100
+    seed = int(sys.argv[2]) if len(sys.argv) > 2 else 0
+    subs, nps, inss, dels = load_confusion_matrices(STATS)
+    sub_scores, np_scores, _, _ = calc_score_matrices(subs, nps, inss, dels)
+    eng = DeviceEngine(sub_scores, np_scores, AlignConfig())
+    return 1 if run(eng, n_cases, seed) else 0
 
 
 if __name__ == "__main__":

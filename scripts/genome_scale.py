@@ -9,7 +9,7 @@ then drives realign, stats recalc, bed, and standardize_vcf end-to-end,
 recording wall time, peak RSS, and sampled-window golden parity.
 
     python scripts/genome_scale.py [--mbp 5] [--reads 2000]
-        [--engine pallas] [--parity_sample 8] [--std_contig contig1|contig2]
+        [--engine auto] [--parity_sample 8] [--std_contig contig1|contig2]
         [--stages realign,stats,bed,std] [--workdir DIR]
 
 Prints one JSON line per stage plus a summary line. Fixture generation is
@@ -74,7 +74,7 @@ def build_fixtures(workdir: str, mbp: float, n_reads: int, seed: int):
     t0 = time.perf_counter()
     contig = make_genome(rng, n_bases)
     # contig2: small companion contig so hermetic runs can exercise the
-    # whole-contig standardize path at affordable interpret cost
+    # whole-contig standardize path at affordable CPU cost
     contig2 = make_genome(rng, 15000)
     write_fasta(ref_fa, {"contig1": contig, "contig2": contig2})
 
@@ -135,7 +135,7 @@ def main() -> int:
     ap.add_argument("--mbp", type=float, default=5.0)
     ap.add_argument("--reads", type=int, default=2000)
     ap.add_argument("--seed", type=int, default=11)
-    ap.add_argument("--engine", default="pallas")
+    ap.add_argument("--engine", default="auto")
     ap.add_argument("--parity_sample", type=int, default=8)
     ap.add_argument("--std_contig", default="contig2",
                     help="contig for the whole-contig standardize stage "

@@ -6,11 +6,13 @@ Launches the realign CLI as N cooperating jax.distributed processes
 record-identical to the single-host run, and reports scaling efficiency
 T1 / (N * TN) of the realignment stage.
 
-On real TPU pods every host runs `python -m npore_tpu.cli.realign
---num_hosts N --host_id I --coordinator host0:port --engine pallas`; this
-harness exercises exactly that code path (jax.distributed.initialize,
-region/read sharding, cross-host barrier, deterministic SAM merge) with
-CPU devices + gloo collectives, engine=golden, so it runs anywhere.
+On a real cluster every host runs `python -m npore_tpu.cli.realign
+--num_hosts N --host_id I --coordinator host0:port`; this harness
+exercises exactly that code path (jax.distributed.initialize, region/read
+sharding, cross-host barrier, deterministic SAM merge) with N processes on
+this machine. By default each process runs on the CPU (gloo collectives,
+engine=golden), so it runs anywhere; with --gpu each process is pinned to
+its own GPU (CUDA_VISIBLE_DEVICES=i), one process per card.
 (The reference has no multi-host story at all — its scaling ceiling is one
 mp.Pool, src/realign.py:110-114.)
 
@@ -32,9 +34,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def worker(argv) -> int:
-    """One simulated host: pin CPU devices, then run the realign CLI."""
-    import jax
-    jax.config.update("jax_platforms", "cpu")
+    """One simulated host: run the realign CLI (its platform comes from the
+    environment the parent set: NPORE_PLATFORM or CUDA_VISIBLE_DEVICES)."""
     sys.path.insert(0, REPO)
     from npore_tpu.cli.realign import main
     return main(argv)
@@ -72,8 +73,13 @@ def _run_config(n_hosts: int, args, workdir: str):
             cmd = ["taskset", "-c", f"{lo}-{hi}"] + cmd
         log = os.path.join(workdir, f"host{h}_of{n_hosts}.log")
         logs.append(log)
+        env = dict(os.environ)
+        if args.gpu:
+            env["CUDA_VISIBLE_DEVICES"] = str(h)
+        else:
+            env["NPORE_PLATFORM"] = "cpu"
         procs.append(subprocess.Popen(
-            cmd, cwd=REPO, stdout=open(log, "w"),
+            cmd, cwd=REPO, env=env, stdout=open(log, "w"),
             stderr=subprocess.STDOUT, text=True))
     stage = 0.0
     try:
@@ -114,13 +120,16 @@ def main() -> int:
     ap.add_argument("--stats_dir", default=os.path.join(REPO, "guppy5_stats"))
     ap.add_argument("--engine", default=None, help="single engine (legacy)")
     ap.add_argument("--engines", nargs="+", default=["golden"],
-                    help="engines to sweep; 'pallas' runs the production "
-                         "Mosaic path (interpret mode off-TPU)")
+                    help="engines to sweep; 'auto' runs the device engine "
+                         "(the CUDA kernel with --gpu, else the CPU twin)")
     ap.add_argument("--max_reads", type=int, default=0)
     ap.add_argument("--pin_cores", type=int, default=0,
                     help="cores per simulated host (taskset); makes the "
                          "per-host hardware equal across configs, incl. "
                          "the 1-host baseline")
+    ap.add_argument("--gpu", action="store_true",
+                    help="pin each process to its own GPU instead of the "
+                         "CPU")
     ap.add_argument("--workdir", default=None)
     args = ap.parse_args()
     engines = [args.engine] if args.engine else args.engines

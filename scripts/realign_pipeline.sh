@@ -99,7 +99,7 @@ write_vcf('$wd/ref/0_std.vcf.gz', v.header_lines, iter(v))"
         --output "$wd/ref/${itr}_phased.vcf.gz" \
         --reference "$ref" --ignore-read-groups --indels
     tabix -f -p vcf "$wd/ref/${itr}_phased.vcf.gz" 2>/dev/null || true
-    # standardize with the TPU kernel (:202-209)
+    # standardize with the device engine (:202-209)
     python3 -m npore_tpu.cli.standardize_vcf \
         --vcf "$wd/ref/${itr}_phased.vcf.gz" \
         --ref "$ref" \

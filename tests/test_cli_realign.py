@@ -21,10 +21,10 @@ def _parse(path):
 
 
 # both engines run the FULL CLI path: "golden" is the C++/numpy spec
-# engine; "pallas" is the production device engine (interpret-mode Mosaic
-# hermetically, g_call=1) — closing the engine/config split that shipped
-# the round-1 k_c==1 bug (VERDICT r3 weak #6).
-@pytest.mark.parametrize("engine", ["golden", "pallas"])
+# engine; "xla" is the device engine's CPU implementation (the plain-JAX
+# twin of the CUDA kernel, which chip_smoke.py runs through this CLI on the
+# GPU).
+@pytest.mark.parametrize("engine", ["golden", "xla"])
 def test_cli_realign_all_field_parity(tmp_path, data_dir, stats_dir,
                                       engine):
     pre = str(tmp_path / "out")

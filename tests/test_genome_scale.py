@@ -1,11 +1,11 @@
-"""Reduced-scale in-suite run of the genome-scale harness (VERDICT r2 #3).
+"""Reduced-scale in-suite run of the genome-scale harness.
 
 Exercises the multi-Mbp paths hermetically: a 2 Mbp repeat-dense contig
-through realign (production engine, interpret), sampled golden parity,
+through realign (the device engine's CPU twin), sampled golden parity,
 whole-genome chunked stats, bed generation, and a standardize_vcf slice —
 asserting bounded RSS and that the bucket ladder sees multi-bucket input.
-The full 5 Mbp / 2000-read run happens on hardware via
-scripts/genome_scale.py (results recorded in BASELINE.md).
+The full 5 Mbp / 2000-read run happens on the GPU via
+scripts/genome_scale.py.
 """
 import json
 import os
@@ -42,5 +42,5 @@ def test_genome_scale_reduced(tmp_path):
     assert rows["stats"]["subs_total"] > 0
     assert rows["bed"]["regions"]["all"] > 1000   # repeat-dense genome
     assert rows["std"]["records"] >= 1
-    # bounded memory: IO streams + the largest interpret DP transient
+    # bounded memory: IO streams + the largest DP transient
     assert rows["summary"]["peak_rss_mb"] < 9000

@@ -1,19 +1,19 @@
 """native.fill_group (C++ one-call group packer) vs the numpy fallback:
-bit-identical pk8 / idx32 planes on randomized windows, including negative
-block-start indices (floor-division lanes) and short groups (< B windows).
+bit-identical packed buffers (engine/prepass.py layout) on randomized
+windows, for a full group and a short one (padding rows stay zero).
 
-Reference parity context: the packed planes feed the composite whose
-outputs are pinned golden-exact elsewhere; this test pins only that the
-C++ fill is a faithful drop-in for the Python loop it replaces
-(engine/pallas_engine._fill_group_py)."""
+The packed buffer feeds the device step whose outputs are pinned
+golden-exact elsewhere; this test pins only that the C++ fill is a
+faithful drop-in for the Python loop it replaces
+(engine/device_engine.fill_group_py)."""
 import numpy as np
 import pytest
 
 from npore_tpu.config import AlignConfig
-from npore_tpu.engine.pallas_engine import W, _idx_layout
+from npore_tpu.engine.device_engine import fill_group_py
+from npore_tpu.engine.prepass import group_words
 from npore_tpu.engine.windows import build_windows
 from npore_tpu.native import fill_group_native, get_lib
-from npore_tpu.ops.pallas_dp import BLK, TBLK
 
 
 def _random_windows(rng, n_alns, cfg):
@@ -41,7 +41,6 @@ def _random_windows(rng, n_alns, cfg):
 
 @pytest.mark.skipif(get_lib() is None, reason="no C++ toolchain")
 def test_fill_group_native_matches_python():
-    from npore_tpu.engine.pallas_engine import PallasEngine
     cfg = AlignConfig()
     rng = np.random.default_rng(11)
     wins = _random_windows(rng, 40, cfg)
@@ -49,28 +48,21 @@ def test_fill_group_native_matches_python():
     r_pad = 768
     wins = [w for w in wins if w.b_rows + 1 <= r_pad]
     assert len(wins) >= 30
-    nblk = r_pad // BLK
-    ntb = r_pad // TBLK
-    ni = sum(w_ for _, w_ in _idx_layout(nblk, ntb))
     for n_take in (len(wins), 17):          # full group and short tail
         group = wins[:n_take]
-        B = ((n_take + W - 1) // W) * W
-        G = B // W
-        pk_c = np.zeros((B, r_pad), np.uint8)
-        idx_c = np.zeros((G, W, ni), np.int32)
-        mr_c = fill_group_native(group, r_pad, cfg.r, BLK, TBLK, nblk,
-                                 ntb, pk_c, idx_c.reshape(B, -1))
+        B = 8 * ((n_take + 7) // 8) + 8
+        buf_c = np.zeros((B, group_words(r_pad)), np.int32)
+        mr_c = fill_group_native(group, r_pad, buf_c)
         assert mr_c is not None
 
-        pk_p = np.zeros((B, r_pad), np.uint8)
-        idx_p = np.zeros((G, W, ni), np.int32)
-        eng = object.__new__(PallasEngine)      # only needs .cfg
-        eng.cfg = cfg
-        mr_p = eng._fill_group_py(group, pk_p, idx_p, r_pad)
+        buf_p = np.zeros_like(buf_c)
+        mr_p = fill_group_py(group, buf_p, r_pad)
 
         assert mr_c == mr_p
-        assert np.array_equal(pk_c, pk_p)
-        assert np.array_equal(idx_c, idx_p)
+        assert np.array_equal(buf_c, buf_p)
+        assert not buf_c[n_take:].any()
         # the step bit and base fields are all exercised
-        assert (pk_c >> 6).max() == 1
-        assert (pk_c & 7).max() >= 4
+        pk = buf_c[:, :r_pad // 4].view(np.uint8)
+        assert (pk >> 6).max() == 1
+        assert (pk & 7).max() >= 4
+        assert (buf_c[:n_take, r_pad // 4] == [w.b_rows for w in group]).all()

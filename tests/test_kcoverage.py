@@ -1,12 +1,10 @@
-"""Hermetic coverage of the production k-select ladder paths.
-
-The hardware engine runs KMAXN=(48,27,19,15,13,11); interpret-mode tests
-default to a small ladder, which is exactly the config split that let the
-mixed-period k_c==1 bug ship in round 1. These tests force a mid-size
-ladder through the same two-tier lax.cond code path (KSHORT=8 < kmaxn) on
-deep-repeat cases that exercise deep-k continuations, the SAT clamp, and
-the LB/bail path (reference semantics: src/aln.pyx:601-667), plus an
-in-suite differential mini-fuzz using the on-HW fuzzer's generator.
+"""Deep-repeat exactness: n-polymer continuation depths k = run//n + 1 far
+beyond the common case, for both LEN and SHR sides and every period n,
+through the device engine (the plain-JAX twin on the CPU), plus an in-suite
+differential mini-fuzz using the chip fuzzer's generator (reference
+semantics: src/aln.pyx:601-667). The engine reads the full continuation
+table (k clamped at 127, where the score saturates), so none of these
+cases may fall back to the golden engine.
 """
 import os
 import sys
@@ -16,7 +14,7 @@ import pytest
 
 from npore_tpu.config import AlignConfig
 from npore_tpu.constants import bases_to_int
-from npore_tpu.engine.pallas_engine import PallasEngine
+from npore_tpu.engine.device_engine import DeviceEngine
 from npore_tpu.engine.realigner import AlignItem
 from npore_tpu.golden.align import align as golden_align
 
@@ -24,14 +22,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "scripts"))
 from fuzz_parity import make_case  # noqa: E402
 
-KMID = (20, 12, 9, 7, 6, 5)     # > KSHORT everywhere: two-tier cond active
-
 
 @pytest.fixture(scope="module")
-def kmid_engine(score_matrices):
+def engine(score_matrices):
     sub_scores, np_scores, _, _ = score_matrices
-    return PallasEngine(sub_scores, np_scores, AlignConfig(),
-                        interpret=True, kmaxn=KMID)
+    return DeviceEngine(sub_scores, np_scores, AlignConfig())
 
 
 def _parity(engine, score_matrices, cases):
@@ -46,61 +41,56 @@ def _parity(engine, score_matrices, cases):
     return got
 
 
-def test_deep_k_continuations(kmid_engine, score_matrices):
-    """Homopolymer runs long enough that k_c walks past KSHORT=8 into the
-    full-tier ladder (run up to ~19 units) — both LEN and SHR sides."""
+def test_deep_k_continuations(engine, score_matrices):
+    """Homopolymer runs long enough that k_c walks well past 8 (run up to
+    ~19 units) -- both LEN and SHR sides."""
     cases = []
     for reps, d in [(12, 2), (16, 4), (19, 6)]:
         ref = "CG" + "A" * reps + "TTGCA"
         seq = "CG" + "A" * (reps - d) + "TTGCA"
         cig = "==" + "=" * (reps - d) + "D" * d + "====="
         cases.append((ref, seq, cig))
-    # dinucleotide period-2 deep continuation (k beyond KSHORT for n=2)
+    # dinucleotide period-2 deep continuation
     ref = "C" + "AT" * 22 + "GGACG"
     seq = "C" + "AT" * 19 + "GGACG"
     cases.append((ref, seq, "=" + "=" * 38 + "D" * 6 + "====="))
-    _parity(kmid_engine, score_matrices, cases)
+    _parity(engine, score_matrices, cases)
 
 
-def test_sat_and_bail_paths(kmid_engine, score_matrices):
-    """Runs past the KMID ladder end: either the SAT clamp proves the
-    score or the window bails to the exact golden fallback — output is
-    golden-exact in both cases, and at least one case must bail."""
+def test_saturated_runs_exact(engine, score_matrices):
+    """Runs deep enough that the continuation score saturates (k_c ~ 40-60):
+    golden-exact with no fallback."""
     cases = []
     for reps, d in [(30, 3), (40, 8), (60, 20)]:
         ref = "CG" + "A" * reps + "TTGCA"
         seq = "CG" + "A" * (reps - d) + "TTGCA"
         cig = "==" + "=" * (reps - d) + "D" * d + "====="
         cases.append((ref, seq, cig))
-    before = kmid_engine.bail_count
-    _parity(kmid_engine, score_matrices, cases)
-    # deep-k beyond the mid ladder must have triggered the bail/LB path at
-    # least once (k_c ~ 40-60 > KMID[0]+SAT reach for these lengths)
-    assert kmid_engine.bail_count >= before
+    before = engine.bail_count
+    _parity(engine, score_matrices, cases)
+    assert engine.bail_count == before
 
 
-def test_mini_fuzz_parity(kmid_engine, score_matrices):
+def test_mini_fuzz_parity(engine, score_matrices):
     """In-suite slice of scripts/fuzz_parity.py: repeat-dense random
-    mutated reads, bit-exact vs golden under the mid-size ladder."""
+    mutated reads, bit-exact vs golden."""
     rng = np.random.default_rng(5)
     cases = [make_case(rng) for _ in range(6)]
-    _parity(kmid_engine, score_matrices, cases)
+    _parity(engine, score_matrices, cases)
 
 
 def _deep_k_cases():
     """Per-n repeat events whose continuation depth k_c = run//n + 1 lands
-    strictly above KSHORT=8 but inside the production ladder KMAXN[n-1]
-    (reference: src/aln.pyx:601-667), so the full-tier cond must engage
-    AND must resolve without bailing — for every period n=1..6."""
+    well above 8 for every period n=1..6 (reference: src/aln.pyx:601-667)."""
     cases = []
     tail = "GTCGA"
-    # n=1 SHR: delete 38 of 45 A's -> k_c up to 39 (KSHORT 8 < 39 <= 48)
+    # n=1 SHR: delete 38 of 45 A's -> k_c up to 39
     cases.append(("CC" + "A" * 45 + tail, "CC" + "A" * 7 + tail,
                   "==" + "=" * 7 + "D" * 38 + "====="))
-    # n=1 LEN: insert 25 A's into a 20-A run -> k_c up to 26 (<= 70)
+    # n=1 LEN: insert 25 A's into a 20-A run -> k_c up to 26
     cases.append(("CC" + "A" * 20 + tail, "CC" + "A" * 45 + tail,
                   "==" + "=" * 20 + "I" * 25 + "====="))
-    # n=2..6 SHR at depths above KSHORT, inside KMAXN[n-1]
+    # n=2..6 SHR at deep continuation depths
     for n, units, dels in [(2, 24, 20), (3, 15, 12), (4, 13, 10),
                            (5, 12, 9), (6, 11, 8)]:
         unit = "ACGGTC"[:n]
@@ -111,60 +101,9 @@ def _deep_k_cases():
     return cases
 
 
-def test_production_kmaxn_hermetic(score_matrices):
-    """Pins the exact shipping ladder KMAXN=(48,27,19,15,13,11) off-HW:
-    deep-k continuations for every n resolve bail-free and golden-exact
-    through the full-tier path (round 1's k_c==1 bug shipped through the
-    interpret/production config split this closes)."""
-    from npore_tpu.ops.pallas_dp import KMAXN, KSHORT
-    sub_scores, np_scores, _, _ = score_matrices
-    eng = PallasEngine(sub_scores, np_scores, AlignConfig(),
-                       interpret=True, kmaxn=KMAXN)
-    cases = _deep_k_cases()
-    _parity(eng, score_matrices, cases)
-    assert eng.bail_count == 0, "production ladder must cover in-band k"
-
-    # prove the cases genuinely needed k > KSHORT: a KSHORT-deep ladder
-    # (klo == kmaxn, single tier) must bail on at least the deep n=1 case
-    shallow = PallasEngine(sub_scores, np_scores, AlignConfig(),
-                           interpret=True, kmaxn=(KSHORT,) * 6)
-    _parity(shallow, score_matrices, cases)   # golden via bail fallback
-    assert shallow.bail_count > 0
-
-
-@pytest.mark.slow   # 169s interpret-mode; the UNROLL knob is an
-# experiment path (UNROLL=1 is production — HW sweep, PERF.md)
-def test_unroll6_bit_exact(score_matrices, monkeypatch):
-    """NPORE_DP_UNROLL=6 (the SSA-rename row unroll) must stay bit-exact
-    on deep-repeat cases through the same two-tier ladder."""
-    monkeypatch.setenv("NPORE_DP_UNROLL", "6")
-    sub_scores, np_scores, _, _ = score_matrices
-    eng = PallasEngine(sub_scores, np_scores, AlignConfig(),
-                       interpret=True, kmaxn=KMID)
-    rng = np.random.default_rng(11)
-    cases = [make_case(rng) for _ in range(3)]
-    ref = "CG" + "A" * 16 + "TTGCA"
-    seq = "CG" + "A" * 12 + "TTGCA"
-    cases.append((ref, seq, "==" + "=" * 12 + "DDDD====="))
-    _parity(eng, score_matrices, cases)
-
-
-def test_ext_rescue_tier(score_matrices):
-    """Gap-overflow-bailed windows are re-run through the extended-
-    coverage composite instead of the serial C++ golden fallback (the
-    device analog of the fallback; 30% of a repeat-saturated genome
-    contig bailed before this). A KSHORT-deep common ladder bails on
-    deep-k cases; with kext covering them, the rescue pass must recover
-    every window bit-exactly with ZERO golden fallbacks."""
-    sub_scores, np_scores, _, _ = score_matrices
-    from npore_tpu.ops.pallas_dp import KSHORT
-    eng = PallasEngine(sub_scores, np_scores, AlignConfig(),
-                       interpret=True, kmaxn=(KSHORT,) * 6, kext=KMID)
-    cases = []
-    for reps, d in [(12, 2), (16, 4), (19, 6)]:   # k_c <= 20 = KMID[0]
-        ref = "CG" + "A" * reps + "TTGCA"
-        seq = "CG" + "A" * (reps - d) + "TTGCA"
-        cases.append((ref, seq, "==" + "=" * (reps - d) + "D" * d + "====="))
-    _parity(eng, score_matrices, cases)
-    assert eng.rescue_count > 0, "rescue tier must have engaged"
-    assert eng.bail_count == 0, "no case should reach the golden fallback"
+def test_deep_k_every_period(engine, score_matrices):
+    """Deep continuations for every period resolve golden-exact without
+    the golden fallback."""
+    before = engine.bail_count
+    _parity(engine, score_matrices, _deep_k_cases())
+    assert engine.bail_count == before

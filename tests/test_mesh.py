@@ -3,9 +3,9 @@
 Two layers, matching the production paths:
   * the XLA window-DP sharded step + psum reduction (parallel/mesh.py) —
     what `__graft_entry__.dryrun_multichip` compiles;
-  * the production Pallas composite shard_map'd over the same mesh
-    (engine/pallas_engine._make_composite(mesh=...)), asserting bit-equal
-    output against the single-device engine and the golden spec.
+  * the device engine's step shard_map'd over the same mesh
+    (engine/device_engine.make_step(mesh=...)), asserting bit-equal output
+    against the golden spec.
 (Reference parallelism being replaced: src/realign.py:110-114 pool.)
 """
 import jax
@@ -14,7 +14,7 @@ import pytest
 
 from npore_tpu.config import AlignConfig
 from npore_tpu.constants import bases_to_int
-from npore_tpu.engine.pallas_engine import PallasEngine
+from npore_tpu.engine.device_engine import DeviceEngine
 from npore_tpu.engine.realigner import AlignItem
 from npore_tpu.golden.align import align as golden_align
 from npore_tpu.io.cigar import expand_cigar
@@ -61,17 +61,16 @@ def test_sharded_band_dp_step():
     assert int(np.asarray(counts).sum()) > 0
 
 
-def test_pallas_engine_under_mesh(score_matrices):
-    """Production Pallas composite shard_map'd over the mesh is bit-equal
-    to the single-device engine and the golden spec."""
+def test_device_engine_under_mesh(score_matrices):
+    """The device step shard_map'd over the mesh is bit-equal to the
+    golden spec."""
     sub_scores, np_scores, _, _ = score_matrices
     rng = np.random.default_rng(11)
     items = [AlignItem(bases_to_int(r), bases_to_int(s), c)
              for r, s, c in _cases(rng)]
 
     mesh = _mesh()
-    eng_mesh = PallasEngine(sub_scores, np_scores, AlignConfig(),
-                            interpret=True, mesh=mesh)
+    eng_mesh = DeviceEngine(sub_scores, np_scores, AlignConfig(), mesh=mesh)
     got = eng_mesh.align_batch(items)
     assert eng_mesh.bail_count == 0
 

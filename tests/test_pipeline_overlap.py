@@ -17,7 +17,7 @@ READS_PER_BATCH = 8
 
 class FakeDevice:
     """align_batch_async starts 'device work' immediately on a thread;
-    collect() joins it — the contract PallasEngine implements."""
+    collect() joins it — the contract DeviceEngine implements."""
 
     def __init__(self):
         self.bail_count = 0
@@ -65,8 +65,8 @@ def test_submit_and_emit_overlap_device():
     """With submit cost S and emit cost H per batch, the 3-stage pipeline
     hides both behind device time: ~S + B*D + H, not B*(S+D+H)."""
     rl = SlowEmitRealigner.__new__(SlowEmitRealigner)
-    rl.engine = "pallas"
-    rl._pallas = SlowSubmitDevice()
+    rl.engine = "xla"
+    rl._device = SlowSubmitDevice()
     rl.skipped = []
     rl.errors = []
 
@@ -86,8 +86,8 @@ def test_submit_and_emit_overlap_device():
 
 def test_emit_overlaps_device():
     rl = SlowEmitRealigner.__new__(SlowEmitRealigner)
-    rl.engine = "pallas"
-    rl._pallas = FakeDevice()
+    rl.engine = "xla"
+    rl._device = FakeDevice()
     rl.skipped = []
     rl.errors = []
 
